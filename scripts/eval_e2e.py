@@ -9,11 +9,10 @@ duration head trains with the duration-lattice marginal NLL
 triage prescribed), the eval runs at N >= 256 with the emptied-rate's
 binomial stderr, and the v2 decode is evaluated BOTH at reference
 defaults and with V2BeamConfig.final_feasible_guard (the round-5
-remedy). On TPU the decode paths run the fused model+beam kernels
-(ops/beam_fused.py, the default); the artifact records which.
+remedy).
 
 One re-runnable script: synthetic corpus -> N training steps at B=256 ->
-  - train_step_ms_B256 (slope-timed on TPU),
+  - train_step_ms (median of block_until_ready-timed steps, GPU only),
   - teacher-forced mel reconstruction error (frame joint along the TRUE
     alignment vs ground-truth mel),
   - v2_duration_decode -> upsample -> synthesize_from_alignment -> decoded
@@ -22,9 +21,9 @@ One re-runnable script: synthetic corpus -> N training steps at B=256 ->
   - tone_decode -> levenshtein_edit_distance vs tone targets (the
     reference's one eval metric, /root/reference/src/edit_distance.rs:6-24).
 
-Writes EVAL_r{N}.json (also printed to stdout).
+Writes the record as JSON to --out (also printed to stdout).
 
-  python -u scripts/eval_e2e.py --steps 150 --out EVAL_r03.json
+  python -u scripts/eval_e2e.py --steps 150 --out chiprun_out/eval.json
   python -u scripts/eval_e2e.py --cpu --tiny --steps 8   # smoke
 """
 
@@ -45,7 +44,7 @@ def main():
     p.add_argument("--beam", type=int, default=8)
     p.add_argument("--corpus", type=int, default=4096,
                    help="examples materialized into .npz shards")
-    p.add_argument("--data-dir", type=str, default="/tmp/ssnt_eval_shards")
+    p.add_argument("--data-dir", type=str, default="build/eval_shards")
     p.add_argument("--out", type=str, default=None)
     p.add_argument("--cpu", action="store_true")
     p.add_argument("--tiny", action="store_true")
@@ -61,16 +60,19 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from ssnt_tts_tpu import data as data_lib
-    from ssnt_tts_tpu import data_files as data_files_lib
-    from ssnt_tts_tpu.models import SSNTModel
-    from ssnt_tts_tpu.ops import edit_distance
-    from ssnt_tts_tpu.parallel import decode as decode_lib
-    from ssnt_tts_tpu.parallel import train as train_lib
-    from ssnt_tts_tpu.utils.config import (
+    from ssnt_tts import data as data_lib
+    from ssnt_tts import data_files as data_files_lib
+    from ssnt_tts.models import SSNTModel
+    from ssnt_tts.ops import edit_distance
+    from ssnt_tts.parallel import decode as decode_lib
+    from ssnt_tts.parallel import train as train_lib
+    from ssnt_tts.utils.config import (
         ModelConfig, TrainConfig, tiny_model_config,
     )
-    from ssnt_tts_tpu.utils.timing import bench_step
+    from ssnt_tts.utils.profiling import time_call
+    from ssnt_tts.utils.runtime import configure_compile_cache
+
+    configure_compile_cache()
 
     t_start = time.time()
     if args.tiny:
@@ -141,10 +143,7 @@ def main():
         "data_source": "npz_shards",
         "corpus_examples": len(file_ds),
         "padding_stats": stats.summary(),
-        "decode_backend": (
-            "fused model+beam Pallas kernels (ops/beam_fused.py)"
-            if not args.cpu else "XLA scan (CPU)"
-        ),
+        "device": jax.devices()[0].device_kind,
         "loss_first_logged": losses[0] if losses else None,
         "loss_final": losses[-1] if losses else None,
     }
@@ -156,13 +155,10 @@ def main():
             k: v for k, v in ds.batch(B).items() if k != "alignment"
         }
 
-        def chain(s):
-            s2, _ = train_lib.train_step(model, tx, s, bench_batch)
-            return s2
-
-        dt = bench_step(chain, jax.device_get(state), n_lo=2, n_hi=8)
-        record["train_step_ms"] = round(dt * 1e3, 2)
-        record["train_examples_per_s"] = round(B / dt, 1)
+        step = jax.jit(lambda s, b: train_lib.train_step(model, tx, s, b))
+        st = time_call(step, jax.device_get(state), bench_batch)
+        record["train_step_ms"] = round(st["median_ms"], 3)
+        record["train_examples_per_s"] = round(B / st["median_ms"] * 1e3, 1)
 
     # ---- eval batch ----
     Be = args.eval_batch
@@ -197,7 +193,7 @@ def main():
     # v2 production decode -> alignment -> synthesis (SURVEY §3.1 + §3.3).
     # Two arms: reference-default constraints, and the round-5
     # final-feasibility guard (V2BeamConfig.final_feasible_guard).
-    from ssnt_tts_tpu.utils.config import V2BeamConfig
+    from ssnt_tts.utils.config import V2BeamConfig
 
     dur_table = jnp.arange(cfg.duration_class_size, dtype=jnp.int32)
     for arm, v2cfg in [

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """CLI training entry point (synthetic data).
 
-  python scripts/train.py --steps 200 --batch-size 32 --ckpt /tmp/ssnt_ckpt
+  python scripts/train.py --steps 200 --batch-size 32 --ckpt build/ckpt
 """
 
 import argparse
@@ -31,13 +31,15 @@ def main():
 
         jax.config.update("jax_platforms", "cpu")
 
-    from ssnt_tts_tpu.train_loop import run_training
-    from ssnt_tts_tpu.utils.config import (
+    from ssnt_tts.train_loop import run_training
+    from ssnt_tts.utils.runtime import configure_compile_cache
+    from ssnt_tts.utils.config import (
         ModelConfig,
         TrainConfig,
         tiny_model_config,
     )
 
+    configure_compile_cache()
     mcfg = tiny_model_config() if args.tiny else ModelConfig()
     tcfg = TrainConfig(
         learning_rate=args.lr,

@@ -1,6 +1,6 @@
 """Triage of the v2 empty-beam rate (VERDICT r3 #4).
 
-EVAL_r03.json measured v2_beam_emptied_rate = 0.0625 at BASELINE config-3
+An end-to-end evaluation measured v2_beam_emptied_rate = 0.0625 at BASELINE config-3
 scale (B=256 train, 150 steps) — 1 in 16 utterances hits the condition
 where the reference panics (src/v2.rs:292). This script answers WHY:
 
@@ -12,9 +12,9 @@ where the reference panics (src/v2.rs:292). This script answers WHY:
   3. whether allow_skip or a wider diagonal band eliminates it
      (config sweep at the final checkpoint).
 
-Writes TRIAGE_EMPTYBEAM_r{N}.json.
+Writes the record as JSON to --out.
 
-  python -u scripts/triage_empty_beam.py --out TRIAGE_EMPTYBEAM_r04.json
+  python -u scripts/triage_empty_beam.py --out chiprun_out/triage.json
   python -u scripts/triage_empty_beam.py --cpu --tiny --steps 8  # smoke
 """
 
@@ -48,11 +48,11 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from ssnt_tts_tpu import data as data_lib
-    from ssnt_tts_tpu.models import SSNTModel
-    from ssnt_tts_tpu.parallel import decode as decode_lib
-    from ssnt_tts_tpu.parallel import train as train_lib
-    from ssnt_tts_tpu.utils.config import (
+    from ssnt_tts import data as data_lib
+    from ssnt_tts.models import SSNTModel
+    from ssnt_tts.parallel import decode as decode_lib
+    from ssnt_tts.parallel import train as train_lib
+    from ssnt_tts.utils.config import (
         ModelConfig, TrainConfig, V2BeamConfig, tiny_model_config,
     )
 

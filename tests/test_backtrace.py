@@ -7,8 +7,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from ssnt_tts_tpu.ops import backtrace
-from ssnt_tts_tpu.oracle import numpy_oracle as oracle
+from ssnt_tts.ops import backtrace
+from ssnt_tts.oracle import numpy_oracle as oracle
 
 # 60x10 parent-pointer table from /root/reference/tests/test_decoding.rs:57-118.
 GOLDEN_TABLE = [

@@ -11,8 +11,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ssnt_tts_tpu.ops import beam_v1
-from ssnt_tts_tpu.oracle import numpy_oracle as oracle
+from ssnt_tts.ops import beam_v1
+from ssnt_tts.oracle import numpy_oracle as oracle
 
 _step = jax.jit(beam_v1.beam_search_step, static_argnames=("max_beam_width",))
 _batched = jax.jit(
@@ -208,7 +208,8 @@ def test_widening_beam_loop():
 def test_negative_zero_log_prob_tie_order():
     """-0.0 must tie +0.0 with generation order deciding (IEEE ==, like the
     reference's stable sort). This is the case where `lax.top_k` diverges on
-    TPU: TopK's bit-pattern total order puts +0.0 strictly before -0.0, so
+    backends whose TopK uses a bit-pattern total order (+0.0 strictly
+    before -0.0), so
     the sort-free pairwise-rank selection (ops/beam_common.py) is required
     for backend-independent reference exactness. A finished beam holding
     log_prob -0.0 emits a padding candidate that must outrank a later

@@ -2,7 +2,7 @@
 
 Reference: /root/reference/src/v2.rs (untested there — SURVEY.md §4); the
 oracle is an independent articulation of its semantics, and these tests pin
-the TPU op to it bit-exactly, including the diagonal band/overrun/exact-final
+the JAX op to it bit-exactly, including the diagonal band/overrun/exact-final
 -length prunes and the diagonal re-injection fallback.
 """
 
@@ -11,8 +11,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ssnt_tts_tpu.ops import beam_v2
-from ssnt_tts_tpu.oracle import numpy_oracle as oracle
+from ssnt_tts.ops import beam_v2
+from ssnt_tts.oracle import numpy_oracle as oracle
 
 _NAMES = ["prediction", "log_prob", "next_t", "next_u", "is_finished",
           "total_duration", "beam_branch"]
@@ -160,7 +160,7 @@ def test_randomized_conformance(seed):
             h, lph, fin, tot, dur, t, u, T, U, 0, allow_skip, test_mode, W
         )
     except AssertionError:
-        # Reference would panic on an empty beam; the TPU op must report 0
+        # Reference would panic on an empty beam; the JAX op must report 0
         # survivors instead.
         outs = _step(
             jnp.asarray(h), jnp.asarray(lph), jnp.asarray(fin),
@@ -218,7 +218,7 @@ def test_config_round_trip():
     defaults reproduce the no-config result bit-exactly, and widening the
     band / relaxing the overrun multiplier admits candidates the reference
     constants prune (src/v2.rs:96-116 promoted to config fields)."""
-    from ssnt_tts_tpu.utils.config import V2BeamConfig
+    from ssnt_tts.utils.config import V2BeamConfig
 
     W, D = 3, 5
     T, U = 10, 40
@@ -265,8 +265,8 @@ def test_final_feasible_guard_prunes_doomed_candidates():
     NOW (not at t=T-1); feasible candidates are untouched."""
     import jax.numpy as jnp
     import numpy as np
-    from ssnt_tts_tpu.ops import beam_v2
-    from ssnt_tts_tpu.utils.config import V2BeamConfig
+    from ssnt_tts.ops import beam_v2
+    from ssnt_tts.utils.config import V2BeamConfig
 
     # T=4, U=8, table [0,1,2,3], no skip -> dmin=1, dmax=3. At t=1 a
     # candidate has f = 2 future positions: needs 2 <= U - tot <= 6.
@@ -309,52 +309,3 @@ def test_final_feasible_guard_prunes_doomed_candidates():
     # Feasible candidates keep identical fields vs the unguarded run
     # (the guard only removes, never rescores).
     assert float(lp_g[0, 0]) == float(lp_w[0, 0]) == -0.5
-
-
-def test_final_feasible_guard_kernel_agreement():
-    """Guarded decode agrees across XLA / beam kernel / fused kernel."""
-    import jax
-    import numpy as np
-    import jax.numpy as jnp
-    import ssnt_tts_tpu.ops.beam_pallas as bp
-    from ssnt_tts_tpu.models import SSNTModel
-    from ssnt_tts_tpu.parallel import decode as decode_lib
-    from ssnt_tts_tpu.utils.config import V2BeamConfig, tiny_model_config
-
-    old = bp._INTERPRET
-    bp._INTERPRET = True
-    try:
-        cfg = tiny_model_config()
-        model = SSNTModel(cfg)
-        rng = np.random.default_rng(3)
-        B, T, W, U = 4, 12, 8, 24
-        toks = jnp.asarray(rng.integers(1, cfg.vocab_size, (B, T)),
-                           jnp.int32)
-        il = jnp.asarray([12, 9, 12, 5], jnp.int32)
-        ol = jnp.asarray([20, 16, 24, 10], jnp.int32)
-        mel = jnp.asarray(rng.normal(0, 1, (B, U, cfg.mel_dim)),
-                          jnp.float32)
-        dd = jnp.zeros((B, T), jnp.int32)
-        params = model.init(jax.random.PRNGKey(0), toks, mel, il, ol,
-                            dd, dd, method=model.loss)
-        dtab = jnp.asarray(cfg.duration_table, jnp.int32)
-        gcfg = V2BeamConfig(final_feasible_guard=True)
-        kw = dict(beam_width=W, max_frames=U, config=gcfg)
-        out_x = decode_lib.v2_duration_decode(
-            model, params, toks, il, ol, dtab,
-            fuse_model=False, use_pallas=False, **kw)
-        out_k = decode_lib.v2_duration_decode(
-            model, params, toks, il, ol, dtab,
-            fuse_model=False, use_pallas=True, **kw)
-        out_f = decode_lib.v2_duration_decode(
-            model, params, toks, il, ol, dtab, fuse_model=True, **kw)
-        for k in ["prediction", "beam_branch", "output_length",
-                  "total_duration", "beam_emptied", "log_prob"]:
-            np.testing.assert_array_equal(
-                np.asarray(out_x[k]), np.asarray(out_k[k]),
-                err_msg=f"kernel {k}")
-            np.testing.assert_array_equal(
-                np.asarray(out_x[k]), np.asarray(out_f[k]),
-                err_msg=f"fused {k}")
-    finally:
-        bp._INTERPRET = old

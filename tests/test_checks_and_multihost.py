@@ -7,7 +7,7 @@ import jax.numpy as jnp
 
 
 def test_v2_checked_flags_empty_beam():
-    from ssnt_tts_tpu.ops import checks
+    from ssnt_tts.ops import checks
 
     W, D = 2, 2
     h = np.log(np.full((W, D), 0.5, np.float32))
@@ -31,7 +31,7 @@ def test_v2_checked_flags_empty_beam():
 
 
 def test_v2_checked_passes_valid():
-    from ssnt_tts_tpu.ops import checks
+    from ssnt_tts.ops import checks
 
     W, D = 2, 3
     h = np.log(np.full((W, D), 0.3, np.float32))
@@ -54,7 +54,7 @@ def test_v2_checked_passes_valid():
 
 
 def test_upsample_checked():
-    from ssnt_tts_tpu.ops import checks
+    from ssnt_tts.ops import checks
 
     dur = jnp.asarray(np.array([[[2, 1]]], np.int32))
     ok_len = jnp.asarray(np.array([[3]], np.int32))
@@ -68,7 +68,7 @@ def test_upsample_checked():
 
 
 def test_multihost_single_process_path():
-    from ssnt_tts_tpu.parallel import multihost
+    from ssnt_tts.parallel import multihost
 
     assert multihost.process_count() == 1
     assert multihost.is_primary()

@@ -1,4 +1,4 @@
-"""Conformance: JAX TPU ops == C++ CPU oracle == numpy oracle.
+"""Conformance: JAX ops == C++ CPU oracle == numpy oracle.
 
 This is the native-layer conformance harness (SURVEY.md §7 step 3) and the
 BASELINE config-0/1 check: SSNT loss+grad on (T=50, U=20) and a batched
@@ -10,10 +10,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ssnt_tts_tpu.ops import beam_v1, beam_v2, edit_distance, lattice
-from ssnt_tts_tpu.ops import tone_latent as tone_ops
-from ssnt_tts_tpu.oracle import build as cpp
-from ssnt_tts_tpu.oracle import numpy_oracle as pyo
+from ssnt_tts.ops import beam_v1, beam_v2, edit_distance, lattice
+from ssnt_tts.ops import tone_latent as tone_ops
+from ssnt_tts.oracle import build as cpp
+from ssnt_tts.oracle import numpy_oracle as pyo
 
 
 def test_cpp_builds():
@@ -111,7 +111,7 @@ def test_tone_three_way(rng):
 
 
 def test_backtrace_upsample_editdist_vs_cpp(rng):
-    from ssnt_tts_tpu.ops import backtrace, upsample
+    from ssnt_tts.ops import backtrace, upsample
 
     B, U, W = 2, 9, 4
     bb = rng.integers(0, W, (B, U, W)).astype(np.int32)

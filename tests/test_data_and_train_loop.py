@@ -6,7 +6,7 @@ import os
 import numpy as np
 import pytest
 
-from ssnt_tts_tpu import data as data_lib
+from ssnt_tts import data as data_lib
 
 
 def test_synthetic_dataset_invariants():
@@ -40,8 +40,8 @@ def test_prefetch_to_device():
 
 
 def test_training_loop_runs_and_resumes(tmp_path):
-    from ssnt_tts_tpu.train_loop import run_training
-    from ssnt_tts_tpu.utils.config import (
+    from ssnt_tts.train_loop import run_training
+    from ssnt_tts.utils.config import (
         MeshConfig,
         TrainConfig,
         tiny_model_config,
@@ -61,7 +61,7 @@ def test_training_loop_runs_and_resumes(tmp_path):
     )
     m1 = run_training(num_steps=3, **kwargs)
     assert np.isfinite(m1["loss"])
-    from ssnt_tts_tpu.utils import checkpoint as ckpt_lib
+    from ssnt_tts.utils import checkpoint as ckpt_lib
 
     assert ckpt_lib.latest_step(ckpt) == 3
     # Resume continues from step 3.

@@ -4,8 +4,8 @@ train_loop run from a directory of .npz shards (VERDICT r1 #8)."""
 import numpy as np
 import pytest
 
-from ssnt_tts_tpu import data as data_lib
-from ssnt_tts_tpu import data_files as dfl
+from ssnt_tts import data as data_lib
+from ssnt_tts import data_files as dfl
 
 
 @pytest.fixture(scope="module")
@@ -90,8 +90,8 @@ def test_bucket_routing_is_minimal(shard_dir):
 
 
 def test_train_loop_runs_from_files(shard_dir, tmp_path):
-    from ssnt_tts_tpu.train_loop import run_training
-    from ssnt_tts_tpu.utils.config import (
+    from ssnt_tts.train_loop import run_training
+    from ssnt_tts.utils.config import (
         MeshConfig, TrainConfig, tiny_model_config,
     )
 

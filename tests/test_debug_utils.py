@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from ssnt_tts_tpu.utils import debug
+from ssnt_tts.utils import debug
 
 
 def test_guard_nans_passes_clean():

@@ -6,11 +6,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ssnt_tts_tpu.models import SSNTModel
-from ssnt_tts_tpu.oracle import numpy_oracle as pyo
-from ssnt_tts_tpu.parallel import decode as decode_lib
-from ssnt_tts_tpu.parallel import train as train_lib
-from ssnt_tts_tpu.utils.config import TrainConfig, tiny_model_config
+from ssnt_tts.models import SSNTModel
+from ssnt_tts.oracle import numpy_oracle as pyo
+from ssnt_tts.parallel import decode as decode_lib
+from ssnt_tts.parallel import train as train_lib
+from ssnt_tts.utils.config import TrainConfig, tiny_model_config
 
 B, T, U = 2, 6, 20
 
@@ -125,7 +125,7 @@ def test_v2_synthesis_from_alignment(model_and_params):
 
 
 def test_tone_decode_and_edit_distance_eval(model_and_params):
-    from ssnt_tts_tpu.ops import edit_distance
+    from ssnt_tts.ops import edit_distance
 
     model, params, batch = model_and_params
     W, K = 3, model.config.tone_class_size
@@ -273,3 +273,54 @@ def test_v2_empty_beam_diagnostics(model_and_params):
     np.testing.assert_array_equal(
         np.asarray(plain["prediction"]), np.asarray(feas["prediction"])
     )
+
+
+@pytest.mark.parametrize("decoder", ["v1", "v2", "tone"])
+def test_step_halves_replay_the_decode_scan(model_and_params, decoder):
+    """Driving a decoder's model half and selection half one step at a time
+    from its initial carry gives the scan's per-step outputs bit for bit.
+    Both run op by op (no jit), so both evaluate the same float ops."""
+    with jax.disable_jit():
+        _replay(model_and_params, decoder)
+
+
+def _replay(model_and_params, decoder):
+    model, params, batch = model_and_params
+    cfg = model.config
+    W = 4
+    tok, il, ol = (batch[k] for k in
+                   ("tokens", "input_length", "output_length"))
+    table = np.asarray(cfg.duration_table, np.int32)
+    enc = model.apply(params, tok, il, method=model.encode)
+    if decoder == "v1":
+        out = decode_lib.beam_decode(model, params, tok, il, max_frames=U,
+                                     beam_width=W)
+        carry0, model_step, n = decode_lib.v1_carry0, decode_lib.v1_model_step, U
+        select = lambda h, c, mo: decode_lib.v1_select_step(h, c, mo, il)
+        scan_out = (out["beam_branch"], out["prediction"])
+        pick = lambda o: (o[0], o[3])  # (branch, pred)
+    elif decoder == "v2":
+        out = decode_lib.v2_duration_decode(model, params, tok, il, ol, table,
+                                            beam_width=W, max_frames=U)
+        carry0, model_step, n = decode_lib.v2_carry0, decode_lib.v2_model_step, T
+        select = lambda h, c, mo: decode_lib.v2_select_step(
+            h, c, mo, table, il, ol)
+        scan_out = (out["beam_branch"], out["prediction"])
+        pick = lambda o: (o[1], o[0])
+    else:
+        out = decode_lib.tone_decode(model, params, tok, il, beam_width=W)
+        carry0, model_step, n = (decode_lib.tone_carry0,
+                                 decode_lib.tone_model_step, T)
+        select = lambda h, c, mo: decode_lib.tone_select_step(h, c, mo, il)
+        scan_out = (out["beam_branch"], out["prediction"])
+        pick = lambda o: (o[1], o[0])
+    carry = carry0(B, W, cfg)
+    branches, preds = [], []
+    for _ in range(n):
+        h, model_out = model_step(model, params, enc, carry)
+        carry, step_out = select(h, carry, model_out)
+        branch, pred = pick(step_out)
+        branches.append(np.asarray(branch))
+        preds.append(np.asarray(pred))
+    np.testing.assert_array_equal(np.stack(branches, 1), scan_out[0])
+    np.testing.assert_array_equal(np.stack(preds, 1), scan_out[1])

@@ -6,8 +6,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from ssnt_tts_tpu.ops import edit_distance
-from ssnt_tts_tpu.oracle import numpy_oracle as oracle
+from ssnt_tts.ops import edit_distance
+from ssnt_tts.oracle import numpy_oracle as oracle
 
 _batched = jax.jit(edit_distance.levenshtein_edit_distance)
 

@@ -78,7 +78,7 @@ CASE 6 (adjacent dedup): both beams identical state (t=1, u=1,
 import numpy as np
 import jax.numpy as jnp
 
-from ssnt_tts_tpu.ops import beam_v2, tone_latent
+from ssnt_tts.ops import beam_v2, tone_latent
 
 
 def _f(x):
@@ -181,68 +181,3 @@ def test_tone_hand_golden_cases_5_6():
         np.asarray(nfin), [[True, False], [False, False]]
     )
     np.testing.assert_array_equal(np.asarray(br), [[1, 0], [0, 0]])
-
-
-def test_v2_hand_golden_through_pallas_and_fused_selection():
-    """The same hand-derived cases through the beam KERNEL path
-    (interpret mode, bitonic selection) — a shared misreading between
-    the XLA step and the kernels would fail here against arrays traced
-    by hand from src/v2.rs."""
-    import ssnt_tts_tpu.ops.beam_pallas as bp
-    old = bp._INTERPRET
-    bp._INTERPRET = True
-    try:
-        dtab = _i([0, 1, 2, 3])
-        h = _f([
-            [[-0.25, -0.5, -0.75, -1.0], [-0.125, -0.25, -0.375, -0.5]],
-            [[-0.5, -0.5, -0.25, -0.5], [-0.5, -0.125, -0.5, -0.5]],
-            [[-9.0, -9.0, -9.0, -9.0], [-2.0, -1.0, -0.5, -0.25]],
-        ])
-        (pred, lp, nt, nu, nfin, ntot, br) = bp.v2_beam_search_decode(
-            h,
-            _f([[-1.0, -1.5], [-2.0, -2.5], [-3.0, -1.0]]),
-            _b([[False, False], [False, False], [True, False]]),
-            _i([[2, 3], [6, 7], [8, 4]]), dtab,
-            _i([[1, 1], [3, 3], [3, 2]]), _i([[1, 1], [3, 3], [4, 2]]),
-            _i([4, 4, 4]), _i([8, 8, 8]),
-            zero_duration_id=0, allow_skip=False, test_mode=False,
-        )
-        np.testing.assert_array_equal(
-            np.asarray(pred), [[1, 1], [2, 1], [2, 2]]
-        )
-        np.testing.assert_array_equal(
-            np.asarray(lp),
-            [[-1.5, -1.5], [-2.25, -2.625], [-1.5, -1.5]],
-        )
-        np.testing.assert_array_equal(
-            np.asarray(ntot), [[3, 3], [8, 8], [6, 6]]
-        )
-        np.testing.assert_array_equal(
-            np.asarray(br), [[0, 0], [0, 1], [1, 1]]
-        )
-    finally:
-        bp._INTERPRET = old
-
-
-def test_tone_hand_golden_through_pallas():
-    import ssnt_tts_tpu.ops.beam_pallas as bp
-    old = bp._INTERPRET
-    bp._INTERPRET = True
-    try:
-        h = _f([
-            [[-0.5, -0.25, -1.0], [-9.0, -9.0, -9.0]],
-            [[-0.5, -0.25, -1.0], [-0.5, -0.25, -1.0]],
-        ])
-        (pred, lp, nt, nu, nfin, br) = bp.tone_beam_search_decode(
-            h, _f([[-0.5, -0.25], [-0.5, -0.5]]),
-            _b([[False, True], [False, False]]),
-            _i([[1, 1], [1, 1]]), _i([[1, 1], [1, 1]]),
-            _i([3, 3]), empty_tone_id=0,
-        )
-        np.testing.assert_array_equal(np.asarray(pred), [[0, 1], [1, 0]])
-        np.testing.assert_array_equal(
-            np.asarray(lp), [[-0.25, -0.75], [-0.75, -1.0]]
-        )
-        np.testing.assert_array_equal(np.asarray(br), [[1, 0], [0, 0]])
-    finally:
-        bp._INTERPRET = old

@@ -14,7 +14,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ssnt_tts_tpu.ops import lattice
+from ssnt_tts.ops import lattice
 
 
 def brute_force_v1(log_emit, log_shift, log_frame):

@@ -5,7 +5,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ssnt_tts_tpu.ops import lattice, lattice_scan
+from ssnt_tts.ops import lattice, lattice_scan
 
 
 def rand_inputs(rng, B, T, U):

@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from ssnt_tts_tpu.ops import lattice, lattice_sharded
+from ssnt_tts.ops import lattice, lattice_sharded
 
 
 def _mesh(n, name="model"):
@@ -139,10 +139,10 @@ def test_tsharding_reachable_from_training_config():
     must actually reach the T-sharded loss through the sharded train step.
     With the threshold at 0 every lattice T-shards; the step must run and
     produce the same loss as the unsharded train step."""
-    from ssnt_tts_tpu.models import SSNTModel
-    from ssnt_tts_tpu.parallel import mesh as mesh_lib
-    from ssnt_tts_tpu.parallel import train as train_lib
-    from ssnt_tts_tpu.utils.config import (
+    from ssnt_tts.models import SSNTModel
+    from ssnt_tts.parallel import mesh as mesh_lib
+    from ssnt_tts.parallel import train as train_lib
+    from ssnt_tts.utils.config import (
         MeshConfig, TrainConfig, tiny_model_config,
     )
 
@@ -179,7 +179,7 @@ def test_tsharding_reachable_from_training_config():
     np.testing.assert_allclose(loss_tshard, loss_plain, rtol=1e-4)
 
     # Sanity on the dispatch helper itself.
-    from ssnt_tts_tpu.ops import lattice_sharded as ls_mod
+    from ssnt_tts.ops import lattice_sharded as ls_mod
     assert ls_mod.active_tshard(4, 4, 4) is None  # no context
     with ls_mod.tshard_lattice(mesh, "model", min_cells=10**9):
         assert ls_mod.active_tshard(4, 4, 4) is None  # below threshold

@@ -101,10 +101,10 @@ def test_two_process_training_matches_single_process(tmp_path):
     # deterministic batch construction is replicated here).
     import jax
 
-    from ssnt_tts_tpu.models import SSNTModel
-    from ssnt_tts_tpu.parallel import multihost
-    from ssnt_tts_tpu.parallel import train as train_lib
-    from ssnt_tts_tpu.utils.config import TrainConfig, tiny_model_config
+    from ssnt_tts.models import SSNTModel
+    from ssnt_tts.parallel import multihost
+    from ssnt_tts.parallel import train as train_lib
+    from ssnt_tts.utils.config import TrainConfig, tiny_model_config
 
     cfg = tiny_model_config()
     model = SSNTModel(cfg)
@@ -139,7 +139,7 @@ def test_initialize_raises_when_cluster_env_is_broken(monkeypatch):
     single-process training on 1/N hosts (VERDICT r2 missing #1)."""
     import jax
 
-    from ssnt_tts_tpu.parallel import multihost
+    from ssnt_tts.parallel import multihost
 
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1")
 

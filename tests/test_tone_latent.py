@@ -5,8 +5,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ssnt_tts_tpu.ops import tone_latent
-from ssnt_tts_tpu.oracle import numpy_oracle as oracle
+from ssnt_tts.ops import tone_latent
+from ssnt_tts.oracle import numpy_oracle as oracle
 
 _NAMES = ["prediction", "log_prob", "next_t", "next_u", "is_finished",
           "beam_branch"]

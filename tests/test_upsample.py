@@ -7,8 +7,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from ssnt_tts_tpu.ops import upsample
-from ssnt_tts_tpu.oracle import numpy_oracle as oracle
+from ssnt_tts.ops import upsample
+from ssnt_tts.oracle import numpy_oracle as oracle
 
 
 def test_golden_reference_case():
